@@ -17,7 +17,7 @@ import numpy as np
 
 
 def main(argv=None):
-    ap = argparse.ArgumentParser(description="TPU-native multi-motion tracking")
+    ap = argparse.ArgumentParser(description="Multi-motion visual odometry / tracking")
     ap.add_argument("sequence", help="KITTI-format sequence directory")
     ap.add_argument("--settings", help="OpenCV-YAML settings (e.g. kitti03.yaml)")
     ap.add_argument("--frames", type=int, default=None)
@@ -84,15 +84,16 @@ def main(argv=None):
 
     from multimot_track_tpu.config import DEFAULT_CONFIG
     from multimot_track_tpu.io.native_loader import get_sequence
-    from multimot_track_tpu.io.yamlcfg import config_from_yaml
     from multimot_track_tpu.pipeline.system import MultiMotSystem
-    from multimot_track_tpu.viz import render
 
     cfg = DEFAULT_CONFIG
-    if args.settings:
-        cfg = config_from_yaml(args.settings, cfg)
-    elif (pathlib.Path(args.sequence) / "kitti03.yaml").exists():
-        cfg = config_from_yaml(pathlib.Path(args.sequence) / "kitti03.yaml", cfg)
+    settings = args.settings or pathlib.Path(args.sequence) / "kitti03.yaml"
+    if args.settings or settings.exists():
+        from multimot_track_tpu.io.yamlcfg import config_from_yaml
+
+        cfg = config_from_yaml(settings, cfg)
+    if args.viz:
+        from multimot_track_tpu.viz import render
 
     if args.mono or args.euroc:
         return run_mono(args, cfg)
@@ -176,16 +177,17 @@ def main(argv=None):
     print("\nsummary:", json.dumps(summary, indent=2))
     if out:
         sys_.save_results(out)
-        obj_pts = [
-            (o.centre3d, o.track_id)
-            for o in sys_.map.obj_records
-            if np.all(np.isfinite(o.centre3d))
-        ]
-        render.draw_trajectory(
-            [np.asarray(p) for p in sys_.map.camera_poses],
-            object_centres=obj_pts,
-            path=out / "traj.png",
-        )
+        if args.viz:
+            obj_pts = [
+                (o.centre3d, o.track_id)
+                for o in sys_.map.obj_records
+                if np.all(np.isfinite(o.centre3d))
+            ]
+            render.draw_trajectory(
+                [np.asarray(p) for p in sys_.map.camera_poses],
+                object_centres=obj_pts,
+                path=out / "traj.png",
+            )
         print(f"results written to {out}")
     if hasattr(seq, "close"):
         seq.close()

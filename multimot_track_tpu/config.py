@@ -71,7 +71,7 @@ class PaddingConfig:
     # 1..3 (rgbd_tum.cc:335), but the reference's association tables
     # handle ~12 concurrent objects (src/Tracking.cc:704-748); 8 covers
     # the long multi-mover scenes (io/synth circuit/avenue) with margin —
-    # the vmapped object ensemble scales linearly in K (PERF.md), so
+    # the vmapped object ensemble scales linearly in K, so
     # raise/lower to trade device time for capacity
     k_obj_max: int = 8
     # per-object gather size for the motion solvers: close KITTI objects
@@ -83,14 +83,13 @@ class PaddingConfig:
     # the batch; association/bookkeeping capacity stays k_obj_max while
     # the solve batch covers the top-k populated labels — empty slots
     # solve to identity anyway, so k_obj_solve >= concurrent movers is
-    # lossless.  Measured on-chip (KCURVE.json): (8 slots, solve 4) costs
-    # 28.9 ms/pair == the old K=4 program's 28.7; solve 6 pays +36%,
-    # solve 8 +82%.  Default 6 is picked from the dense-traffic A/B
-    # (KOBJ_AB.json, 8 concurrent movers): solve 4 permanently LOSES the
-    # lowest-ranked mover (7% coverage) and starves another (29%), while
-    # solve 6 retains all 8 labels at >=66% coverage with flat accuracy;
-    # solve 8 adds only +4% mean coverage for +34% more cost.  The
-    # reference solves every object sequentially (Tracking.cc:1658-2253).
+    # lossless.  Device cost grows with the solve batch, not with the slot
+    # count.  Default 6 is picked from the dense-traffic A/B
+    # (tools/measure_kobj_ab.py, 8 concurrent movers): solve 4 permanently
+    # LOSES the lowest-ranked mover (7% coverage) and starves another
+    # (29%), while solve 6 retains all 8 labels at >=66% coverage with
+    # flat accuracy; solve 8 adds only +4% mean coverage.  The reference
+    # solves every object sequentially (Tracking.cc:1658-2253).
     k_obj_solve: int = 6
 
 
@@ -112,15 +111,14 @@ class SolverConfig:
     # LM iteration caps.  The reference caps at 100/200 (Optimizer.cc:520,
     # :2296); with the rel_tol freeze our LM converges by ~10-20 iterations
     # on kitti_sample (tools/diag_iters.py: identical metrics down to 20/40)
-    # — 50/100 keeps a 2x safety margin and cuts the device critical path
-    # ~20% (PERF.md)
+    # — 50/100 keeps a 2x safety margin on a shorter device critical path
     cam_lm_iters: int = 50
     obj_lm_iters: int = 100
     lm_tau: float = 1e-5            # initial lambda = tau * max(diag H)
     # --- RANSAC initialisation (reference: Tracking.cc:4324-4443) ---
     ransac_iters: int = 500         # ego hypothesis count (Tracking.cc:4362)
     # objects benefit from more hypotheses than the reference's 500 —
-    # batched generation/scoring is cheap on TPU and measurably improves
+    # batched generation/scoring is cheap on an accelerator and measurably improves
     # the inlier subset (PARITY.md: object RPE 13% -> ~6%); 1000 measured
     # equal-or-better than 2000 once the 3-stream seed ensemble provides
     # redundancy (obj 5.6% / speed 2.4% at 1000 vs 5.8% / 2.4% at 2000;
@@ -183,10 +181,6 @@ class SolverConfig:
     # weighting removes the bias without discarding far points' rotation
     # information.  0 disables. ---
     cam_depth_weight_z0: float = 15.0
-    # --- flow-BA backend: "auto" = the fused Pallas LM kernel on TPU
-    # (solvers/flow_ba_pallas.py, 4.8x on the batched object path), pure
-    # XLA elsewhere; "xla"/"pallas" force one side ---
-    flow_ba_backend: str = "auto"
     # --- photometric flow verification (ops/photometric.py; no reference
     # counterpart — the reference trusts .flo unconditionally and pays for
     # it in coherent outlier clusters, measured in tools/diag_ego3.py) ---

@@ -1,6 +1,6 @@
 """FAST-9 corner detection with grid-uniform top-k selection, pure jnp.
 
-TPU-native replacement for the reference's ORBextractor keypoint stage
+Batched replacement for the reference's ORBextractor keypoint stage
 (src/ORBextractor.cc:1046-1137: 8-level pyramid, FAST-9 per 30px cell with
 dual thresholds, octree spatial distribution).  Design deviations, per
 SURVEY.md §7 "Hard parts":
@@ -11,7 +11,7 @@ SURVEY.md §7 "Hard parts":
   strong (>= ini_threshold) corners over weak (>= min_threshold) ones by
   score biasing.
 * All 16 circle taps are expressed as rolls of the whole image -> one fused
-  elementwise program over (H, W) on the VPU; no per-pixel control flow.
+  elementwise program over (H, W); no per-pixel control flow.
 
 Descriptors (rBRIEF) are deliberately separate — the active reference
 pipeline consumes keypoint *positions* only (flow supplies correspondence,

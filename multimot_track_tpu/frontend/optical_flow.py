@@ -9,7 +9,7 @@ estimated on-device with the classic iterative LK scheme —
   spatio-temporal gradients, solve the 2x2 LK system per pixel from
   box-filtered gradient products (separable running sums), iterate.
 
-Everything is whole-image tensor algebra (VPU-friendly); no per-pixel
+Everything is whole-image tensor algebra (fusable elementwise work); no per-pixel
 control flow.  Quality target is the pipeline's needs (sub-pixel static
 flow for the flow-BA), not SOTA benchmarks — the .flo path remains
 available and preferred when files exist.

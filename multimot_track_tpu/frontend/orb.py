@@ -2,7 +2,7 @@
 
 Functional counterpart of the reference ORBextractor descriptor stage
 (src/ORBextractor.cc: IC_Angle orientation + steered rBRIEF), re-designed
-for TPU:
+for batched accelerators:
 
 * The 256 comparison pairs are *generated* from a fixed-seed isotropic
   Gaussian (the original BRIEF recipe) instead of reusing OpenCV's
@@ -13,7 +13,7 @@ for TPU:
   image; no per-keypoint control flow.
 * Descriptors are returned in {-1,+1} int8 "sign" form: Hamming distance
   between packed 256-bit strings equals (256 - s_a . s_b) / 2, which turns
-  brute-force descriptor matching into an MXU matmul (see ops/matching.py).
+  brute-force descriptor matching into one matmul (see ops/matching.py).
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Feature sampling: dense object grids and static sparse points.
 
-TPU-native re-design of the reference Frame constructor's sampling loops
+Batched re-design of the reference Frame constructor's sampling loops
 (src/Frame.cc:188-324): instead of growing std::vectors pixel-by-pixel, we
 evaluate the predicates over the whole grid at once and compact the valid
 entries into fixed-capacity padded arrays (SURVEY.md §7: fixed-size,
@@ -46,10 +46,8 @@ def compact(valid: jnp.ndarray, n_max: int, *payloads):
     """Compact entries where ``valid`` into the first slots of length-n_max
     arrays (stable order).  Returns (n_valid, mask, *packed).
 
-    Implemented as one argsort + gathers: scatters serialize on TPU
-    (measured ~10 ms for the 29k-point dense-object grid via
-    ``.at[tgt].set``), while a 29k int32 sort plus payload gathers runs in
-    tens of microseconds.  Key = original index, biased by +n for invalid
+    Implemented as one argsort + gathers instead of a ``.at[tgt].set``
+    scatter over the 29k-point dense-object grid.  Key = original index, biased by +n for invalid
     entries, so valid entries come first in original (row-major) order —
     the ordering the reference's growing std::vectors produce."""
     valid = valid.reshape(-1)
@@ -115,8 +113,7 @@ def sample_dense_objects(
     else:
         # grid points sit at integer, stride-`step` positions, so every
         # patch tap is a strided SLICE of the (padded) image — 25 slices
-        # for the whole grid instead of 8192 x 25 random gathers (the
-        # gather path measured ~7-9 ms/frame on v5e; this is ~us)
+        # for the whole grid instead of 8192 x 25 random gathers
         r = patch_radius
         g = jnp.pad(gray.astype(jnp.float32), r, mode="edge")
         Hg, Wg = yy.shape

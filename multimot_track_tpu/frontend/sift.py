@@ -5,10 +5,10 @@ Functional counterpart of the reference's cudasift subsystem
 ComputeOrientations/ExtractSiftDescriptors; host orchestration
 cudaSiftH.cu:19-385) — not a translation: every stage is expressed as
 whole-image tensor ops (separable convolutions, rolled comparisons,
-batched gathers) that XLA fuses for the VPU, with the descriptor stage as
+batched gathers) that XLA fuses, with the descriptor stage as
 one batched einsum over precomputed bin-weight masks.
 
-Matching uses dot products of L2-normalised descriptors on the MXU
+Matching uses dot products of L2-normalised descriptors as one matmul
 (ops/matching.match_float) — the counterpart of cudasift's
 MatchSiftData/FindMaxCorr kernels (src/cudasift/matching.cu:7-536).
 """

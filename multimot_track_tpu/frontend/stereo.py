@@ -3,12 +3,12 @@
 The reference's stereo path (``GrabImageStereo`` src/Tracking.cc:256, stereo
 Frame ctor src/Frame.cc:79 with dual-thread ORB and
 ``ComputeStereoMatches`` src/Frame.cc:854-1035: scanline descriptor search
-+ SAD subpixel) produces per-*keypoint* depth.  The TPU pipeline's frontend
++ SAD subpixel) produces per-*keypoint* depth.  The batched pipeline's frontend
 consumes a dense depth image (dense object sampling, src/Frame.cc:188), so
 the native design computes a *dense* disparity map instead:
 
   cost volume via shifted absolute differences, box-filtered (separable
-  running sums — VPU-friendly), scanned over disparities with a running
+  running sums — elementwise work), scanned over disparities with a running
   argmin and 3-point parabola sub-pixel refinement.  No per-pixel control
   flow; one ``lax.scan`` over the disparity axis keeps memory at a few
   (H, W) buffers.
@@ -189,7 +189,7 @@ def quad_temporal_matches(
     association (``vDescIndex``, src/Frame.cc:854-1035) that
     ``ORBmatcher::SearchByQuad`` (src/ORBmatcher.cc:1704-1842) consumes:
     a temporal match must be descriptor-consistent in last-L, last-R,
-    cur-L AND cur-R.  TPU shape: FAST on each left view; ORB descriptors
+    cur-L AND cur-R.  Batched shape: FAST on each left view; ORB descriptors
     on the left keypoints and on their disparity-shifted right positions
     (the vDescIndex association); flow predicts the temporal search
     centre; ops.matching.search_by_quad fuses the four-view criterion.

@@ -2,7 +2,7 @@
 
 The reference's active path only ever relates frame k-1 to k (window of 2,
 SURVEY.md §5); longer temporal structure lives in its keyframe/map-point
-machinery.  The TPU-native analog: chain the *dense* flow fields to carry a
+machinery.  The batched analog: chain the *dense* flow fields to carry a
 window's worth of observations per point — a `lax.scan` over stacked flow
 tensors — feeding the windowed BA (solvers/window_ba.py), which plays the
 role of LocalMapping's local bundle adjustment (src/LocalMapping.cc +
@@ -99,7 +99,7 @@ def build_window_tracks(
     midx, mok = [], []
     for f in range(len(grays) - 1):
         fl = camera.bilinear_sample(jnp.asarray(flows[f]), kps[f][0])
-        r = matching.match_projected_auto(
+        r = matching.match_projected(
             descs[f], kps[f][0] + fl, kp_valid[f],
             descs[f + 1], kps[f + 1][0], kp_valid[f + 1],
             radius=radius, ratio=1.0,

@@ -102,7 +102,7 @@ def exp_se3(xi: jnp.ndarray) -> jnp.ndarray:
 def _so3_left_jacobian_inv(omega: jnp.ndarray) -> jnp.ndarray:
     """Closed-form V^{-1} = I - K/2 + (1/theta^2 - (1+cos)/(2 theta sin)) K^2
     — avoids a batched 3x3 LAPACK solve in log_se3 (tiny-solve custom calls
-    serialize badly on TPU, geometry/smallsolve.py)."""
+    serialize badly, geometry/smallsolve.py)."""
     theta2 = jnp.sum(omega * omega, axis=-1)
     theta = jnp.sqrt(theta2 + _EPS * _EPS)
     K = hat(omega)

@@ -1,9 +1,8 @@
 """Batched tiny SPD solves as pure fused element ops.
 
-``jnp.linalg.solve``/``cholesky`` lower to LAPACK-style custom calls that
-serialize terribly for tiny systems on TPU (measured ~1-2 ms per call for a
-(48, 6, 6) batch — inside a 100-iteration LM loop that is the critical
-path, tools/diag_device_split.py).  For the fixed small sizes this
+``jnp.linalg.solve``/``cholesky`` lower to LAPACK-style custom calls, one
+more launch per call inside a 100-iteration LM loop that is the critical
+path.  For the fixed small sizes this
 framework needs (6x6 pose blocks, 3x3 point blocks, 7x7 Sim3), an unrolled
 Cholesky generates ~n^3/3 fused scalar ops over the batch — no custom
 calls, no while loops, vmap/batch-friendly to any leading shape.

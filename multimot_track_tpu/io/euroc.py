@@ -28,10 +28,9 @@ import re
 from typing import List, Optional, Tuple
 
 import numpy as np
-from PIL import Image
 
 from multimot_track_tpu.config import CameraConfig
-from multimot_track_tpu.io.kitti import FrameData, _rgb_to_gray
+from multimot_track_tpu.io.kitti import FrameData, _rgb_to_gray, read_image
 
 
 def _quat_to_R(qw, qx, qy, qz) -> np.ndarray:
@@ -138,7 +137,7 @@ class EurocSequence:
             # the reference's static calibration (EuRoC.yaml:8-16)
             intr = [458.654, 457.296, 367.215, 248.375]
             dist = [-0.28340811, 0.07395907, 0.00019359, 1.76187114e-05]
-        probe = np.asarray(Image.open(self._files[0]))
+        probe = read_image(self._files[0])
         h, w = probe.shape[:2]
         return CameraConfig(
             fx=intr[0], fy=intr[1], cx=intr[2], cy=intr[3],
@@ -149,7 +148,7 @@ class EurocSequence:
         )
 
     def load_frame(self, i: int) -> FrameData:
-        gray = _rgb_to_gray(np.asarray(Image.open(self._files[i])))
+        gray = _rgb_to_gray(read_image(self._files[i]))
         h, w = gray.shape
         z2 = np.zeros((h, w), np.float32)
         return FrameData(

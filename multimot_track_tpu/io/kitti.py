@@ -18,9 +18,16 @@ import pathlib
 from typing import Dict, List
 
 import numpy as np
-from PIL import Image
 
 from multimot_track_tpu.io.flowio import read_flo
+
+
+def read_image(path) -> np.ndarray:
+    """PNG/JPEG file -> array.  PIL is imported here, not at module top,
+    so the tracking path imports without it."""
+    from PIL import Image
+
+    return np.asarray(Image.open(path))
 
 
 @dataclasses.dataclass
@@ -140,7 +147,7 @@ class KittiSequence:
         }
 
     def _load_gray(self, i: int) -> np.ndarray:
-        return _rgb_to_gray(np.asarray(Image.open(self.frame_paths(i)["image"])))
+        return _rgb_to_gray(read_image(self.frame_paths(i)["image"]))
 
     def _flow_or_estimate(self, i: int, gray: np.ndarray) -> np.ndarray:
         """Read .flo if present, else estimate k -> k+1 flow on device."""
@@ -159,9 +166,9 @@ class KittiSequence:
 
     def load_frame(self, i: int) -> FrameData:
         p = self.frame_paths(i)
-        img = np.asarray(Image.open(p["image"]))
+        img = read_image(p["image"])
         gray = _rgb_to_gray(img)
-        depth_raw = np.asarray(Image.open(p["depth"])).astype(np.float32)
+        depth_raw = read_image(p["depth"]).astype(np.float32)
         H, W = gray.shape
         flow = self._flow_or_estimate(i, gray)
         # missing masks degrade to background-only (pair with the system's

@@ -14,7 +14,6 @@ import pathlib
 
 import jax.numpy as jnp
 import numpy as np
-from PIL import Image
 
 from multimot_track_tpu.io import kitti
 from multimot_track_tpu.frontend import stereo
@@ -55,8 +54,8 @@ class StereoKittiSequence(kitti.KittiSequence):
         if hit is not None:
             return hit
         p = self.frame_paths(i)
-        left = kitti._rgb_to_gray(np.asarray(Image.open(p["image"])))
-        right = kitti._rgb_to_gray(np.asarray(Image.open(p["right"])))
+        left = kitti._rgb_to_gray(kitti.read_image(p["image"]))
+        right = kitti._rgb_to_gray(kitti.read_image(p["right"]))
         disp = stereo.dense_disparity(
             jnp.asarray(left), jnp.asarray(right), max_disp=self.max_disp
         )

@@ -2,7 +2,7 @@
 
 The reference's only online entry points are ROS nodes
 (Examples/ROS/ORB_SLAM2/src/ros_rgbd.cc: subscribe to image topics ->
-TrackRGBD -> publish).  The TPU-native counterpart is transport-agnostic:
+TrackRGBD -> publish).  The counterpart here is transport-agnostic:
 a length-prefixed binary frame protocol over any stream socket, feeding
 ``MultiMotSystem`` frame by frame and answering each frame with a JSON
 result record (pose, state, objects) — subscribe -> track -> publish

@@ -30,10 +30,9 @@ import pathlib
 from typing import List, Tuple
 
 import numpy as np
-from PIL import Image
 
 from multimot_track_tpu.config import CameraConfig
-from multimot_track_tpu.io.kitti import FrameData, _rgb_to_gray
+from multimot_track_tpu.io.kitti import FrameData, _rgb_to_gray, read_image
 
 # default intrinsics of the TUM "freiburg" Kinects (fr1/fr2/fr3)
 TUM_INTRINSICS = {
@@ -131,7 +130,8 @@ class TumRGBDSequence:
                 "default",
             )
         intr = TUM_INTRINSICS[variant]
-        W, H = Image.open(self.root / self.pairs[0][1]).size if self.pairs else (640, 480)
+        H, W = (read_image(self.root / self.pairs[0][1]).shape[:2]
+                if self.pairs else (480, 640))
         return CameraConfig(
             fx=intr["fx"], fy=intr["fy"], cx=intr["cx"], cy=intr["cy"],
             bf=self.bf, width=W, height=H, fps=30.0,
@@ -139,13 +139,13 @@ class TumRGBDSequence:
         )
 
     def _gray(self, i: int) -> np.ndarray:
-        img = np.asarray(Image.open(self.root / self.pairs[i][1]))
+        img = read_image(self.root / self.pairs[i][1])
         return _rgb_to_gray(img)
 
     def load_frame(self, i: int) -> FrameData:
         t, _, dpath = self.pairs[i]
         gray = self._gray(i)
-        dpng = np.asarray(Image.open(self.root / dpath)).astype(np.float32)
+        dpng = read_image(self.root / dpath).astype(np.float32)
         z = dpng / self.depth_map_factor                     # metric depth, 0 invalid
         disp_png = np.where(z > 0, 256.0 * self.bf / np.maximum(z, 1e-6), 0.0)
 

@@ -9,7 +9,7 @@
 // Design is original: Dinic's blocking-flow max-flow (not gco's
 // Boykov-Kolmogorov tree-reuse algorithm) under the Boykov-Veksler-Zabih
 // alpha-expansion move construction (auxiliary node per cross-label
-// neighbor pair).  The TPU path (mean-field + ICM, ops/graphcut.segment)
+// neighbor pair).  The device path (mean-field + ICM, ops/graphcut.segment)
 // stays the production segmenter; this solver is the exactness oracle it
 // is validated against (SURVEY.md §7 "Graph-cut exactness") and an
 // offline refiner for host-side discovery.

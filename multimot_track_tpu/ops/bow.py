@@ -4,7 +4,7 @@ The direct descriptor-matmul place recognition (pipeline/keyframes) is
 exact but scales with total stored descriptors; the reference's DBoW2
 vocabulary + inverted index (Thirdparty/DBoW2, KeyFrameDatabase) exists
 precisely to make retrieval sub-linear at thousands of keyframes.  The
-TPU equivalent keeps everything dense:
+device equivalent keeps everything dense:
 
   vocabulary  k-means over {-1,+1} descriptors (trained on the fly from
               the first keyframes — no ORBvoc.txt download; assignment is

@@ -1,4 +1,4 @@
-"""Multi-label motion segmentation — the gco graph-cut subsystem, TPU-style.
+"""Multi-label motion segmentation — the gco graph-cut subsystem, batched.
 
 The reference ships (dormant) a full alpha-expansion MRF pipeline over
 dynamic points (src/Tracking.cc:4445-4836 + src/gco):
@@ -11,7 +11,7 @@ dynamic points (src/Tracking.cc:4445-4836 + src/gco):
                    neighbours (``GetMSS``/``GetModel``)
 
 True max-flow alpha-expansion is inherently sequential; per SURVEY.md §7
-("Graph-cut exactness") the TPU design solves the same energy with a
+("Graph-cut exactness") the device design solves the same energy with a
 batched mean-field relaxation + ICM polish — dense linear algebra over a
 k-NN graph, judged by end-metric (energy/segmentation) parity rather than
 expansion-step parity.

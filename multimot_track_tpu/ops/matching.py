@@ -1,6 +1,6 @@
-"""Descriptor matching as MXU matmuls.
+"""Descriptor matching as dense matmuls.
 
-TPU re-design of the reference ORBmatcher (src/ORBmatcher.cc): instead of
+Batched re-design of the reference ORBmatcher (src/ORBmatcher.cc): instead of
 per-keypoint radius searches over grid cells with popcount loops
 (``DescriptorDistance``, ``SearchByProjection``, ``ProjMatching``
 src/ORBmatcher.cc:55-416), the whole N x M problem is one (bf16) matmul:
@@ -11,7 +11,8 @@ Spatial gating (the radius search), threshold gates (TH_LOW/TH_HIGH),
 best/second ratio and rotation-consistency checks are all elementwise masks
 over the (N, M) distance matrix — fused by XLA around the matmul.  At the
 reference's scales (4000 x 4000 x 256 = 4 G MACs) one matmul is far below
-a millisecond on the MXU; no grid-cell indexing structures are needed.
+a millisecond on an accelerator; no grid-cell indexing structures are
+needed.
 """
 
 from __future__ import annotations
@@ -33,7 +34,7 @@ def hamming_matrix(desc_a: jnp.ndarray, desc_b: jnp.ndarray) -> jnp.ndarray:
     bf16 accumulation is exact here: every product is +-1 and the true
     result is an integer in [0, 256], well inside bf16's integer range —
     but we accumulate in f32 anyway (preferred_element_type) and let the
-    MXU take bf16 inputs.
+    matrix unit take bf16 inputs.
     """
     a = desc_a.astype(jnp.bfloat16)
     b = desc_b.astype(jnp.bfloat16)
@@ -113,45 +114,6 @@ def match_projected(
     return MatchResult(idx=idx.astype(jnp.int32), dist=best, valid=ok)
 
 
-def match_projected_auto(
-    desc_a: jnp.ndarray,
-    uv_pred: jnp.ndarray,
-    valid_a: jnp.ndarray,
-    desc_b: jnp.ndarray,
-    uv_b: jnp.ndarray,
-    valid_b: jnp.ndarray,
-    radius: float = 15.0,
-    threshold: float = TH_HIGH,
-    ratio: float = 0.9,
-    backend: str = "auto",
-) -> MatchResult:
-    """Backend dispatch for projection-guided matching, mirroring
-    ``solvers.flow_ba.solve_flow_ba_auto``: on TPU with a lane-aligned
-    query count the fused Pallas kernel (ops/pallas_match.py) computes
-    distance + spatial gate + best/second reduction without materialising
-    the (N, M) matrix in HBM; elsewhere the XLA matmul path.  Functional
-    contract identical (tests/test_orb_matching.py)."""
-    if backend == "auto":
-        use_pallas = (
-            jax.default_backend() == "tpu"
-            and desc_a.shape[0] % 128 == 0
-        )
-    else:
-        use_pallas = backend == "pallas"
-    if use_pallas:
-        from multimot_track_tpu.ops.pallas_match import fused_match_projected
-
-        best, second, idx = fused_match_projected(
-            desc_a, uv_pred, valid_a, desc_b, uv_b, valid_b, radius=radius
-        )
-        ok = valid_a & (best <= threshold) & (best < ratio * second)
-        return MatchResult(idx=idx.astype(jnp.int32), dist=best, valid=ok)
-    return match_projected(
-        desc_a, uv_pred, valid_a, desc_b, uv_b, valid_b,
-        radius=radius, threshold=threshold, ratio=ratio,
-    )
-
-
 @functools.partial(jax.jit, static_argnames=("mutual", "ratio"))
 def match_float(
     desc_a: jnp.ndarray,
@@ -163,7 +125,7 @@ def match_float(
 ) -> MatchResult:
     """Float-descriptor matching (SIFT): distance = 2 - 2 a.b for unit
     vectors, Lowe ratio test — the role of cudasift's MatchSiftData /
-    FindMaxCorr kernels (src/cudasift/matching.cu), as one MXU matmul."""
+    FindMaxCorr kernels (src/cudasift/matching.cu), as one matmul."""
     dots = jax.lax.dot_general(
         desc_a, desc_b, (((1,), (1,)), ((), ())), preferred_element_type=jnp.float32
     )

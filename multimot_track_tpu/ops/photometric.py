@@ -11,7 +11,7 @@ This module adds an independent witness the reference lacks: compare a
 small intensity patch around the point in the last frame with the patch
 at its flow-shifted position in the current frame (zero-normalised cross
 correlation).  Wrong flow ⇒ decorrelated patches ⇒ the point is dropped
-before the solve.  On TPU this is a batched bilinear gather + small
+before the solve.  On the device this is a batched bilinear gather + small
 reductions — a few microseconds for thousands of points.
 """
 
@@ -24,9 +24,8 @@ import jax.numpy as jnp
 def extract_patches(gray: jnp.ndarray, uv: jnp.ndarray, radius: int) -> jnp.ndarray:
     """(N, (2r+1)^2) bilinear intensity patches centred at ``uv`` (x, y).
 
-    TPU note: per-tap advanced indexing lowers to (2r+1)^2 * 4 scalar
-    gathers per point (measured 8.5 ms for 8192 x 25 taps on v5e); instead
-    each point fetches its (2r+2)x(2r+2) support as 2r+2 row slices
+    Per-tap advanced indexing lowers to (2r+1)^2 * 4 scalar gathers per
+    point; instead each point fetches its (2r+2)x(2r+2) support as 2r+2 row slices
     (vmapped dynamic_slice -> one lax.gather with slice_sizes=(1, 2r+2)),
     then blends bilinearly with in-register shifts — ~20x fewer, wider
     accesses.  Near the image border the whole support window is clamped
@@ -34,12 +33,8 @@ def extract_patches(gray: jnp.ndarray, uv: jnp.ndarray, radius: int) -> jnp.ndar
     more than r+1 px from the border — everything the samplers produce —
     are bit-identical.
 
-    A Pallas VMEM-resident gather kernel was prototyped and rejected: this
-    environment's Mosaic toolchain crashes on any dynamic-start vector
-    load from VMEM (``ref[pl.ds(i, k)]`` even with the fori_loop index —
-    probed down to a minimal kernel), so random access must stay on the
-    XLA gather path.  Points on a regular grid avoid gathers entirely —
-    see frontend/sampling.sample_dense_objects' strided-slice patches.
+    Points on a regular grid avoid gathers entirely — see
+    frontend/sampling.sample_dense_objects' strided-slice patches.
     """
     H, W = gray.shape
     S = 2 * radius + 2                       # support width incl. +1 for blend
@@ -84,7 +79,7 @@ def refine_position(
 ):
     """KLT-style local re-centering: evaluate ZNCC against ``patch_ref`` on
     a (2s+1)^2 grid of candidate positions around each prediction and take
-    the best.  One batched gather-and-reduce — the TPU-native template
+    the best.  One batched gather-and-reduce — the batched template
     tracker.  Returns (refined uv (N, 2), best zncc (N,))."""
     s = search_radius
     dy, dx = jnp.meshgrid(

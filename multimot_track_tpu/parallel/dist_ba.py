@@ -1,5 +1,5 @@
 """Distributed flow-BA: point set sharded over the mesh, reduced 6x6 system
-assembled with ``psum`` over ICI.
+assembled with ``psum`` over the device interconnect.
 
 This is the "distributed communication backend" the reference lacks
 (SURVEY.md §2.5 last row): per-point Hessian/gradient blocks are computed

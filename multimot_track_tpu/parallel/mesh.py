@@ -1,8 +1,8 @@
 """Device-mesh helpers.
 
 The reference has no distributed backend at all (SURVEY.md §2.5) — its
-parallelism is 3 CPU threads and mutexes.  Here scaling is expressed the
-TPU way: a ``jax.sharding.Mesh`` over the pod slice, shardings annotated
+parallelism is 3 CPU threads and mutexes.  Here scaling is expressed
+as a ``jax.sharding.Mesh`` over the devices, shardings annotated
 with ``NamedSharding``/``PartitionSpec``, XLA inserting the collectives.
 
 Axes:

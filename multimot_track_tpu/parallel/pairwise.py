@@ -1,7 +1,7 @@
 """Parallel-in-time tracking: a batch of frame pairs sharded over the mesh.
 
 The reference is strictly sequential frame-to-frame (SURVEY.md §5 "window of
-2").  The TPU-native observation: each pair's *relative* solves (camera and
+2").  The observation: each pair's *relative* solves (camera and
 objects) depend on the previous frame only through its pose, and the flow-BA
 measurement model is expressed in the last frame's coordinates — so with
 Twl = I the per-pair solves are fully independent.  We therefore:
@@ -65,7 +65,6 @@ def solve_relative_batch(
         )
         res = solve_flow_ba_auto(
             rr.T, eye, uv, flow, depth, valid, fx, fy, cx, cy, params=params,
-            backend=sol.flow_ba_backend,
         )
         return res.T
 

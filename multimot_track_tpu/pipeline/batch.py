@@ -1,4 +1,4 @@
-"""Batched sequence tracking — the TPU-native high-throughput mode.
+"""Batched sequence tracking — the high-throughput mode.
 
 The online mode (system.py) steps frame-by-frame like the reference.  This
 mode exploits the structure SURVEY.md §2.5 points at: expressed in the
@@ -44,11 +44,9 @@ from multimot_track_tpu.ops.wire import (  # noqa: F401  (re-exported API)
 def frontend_batch(gray_u8, depth_u16, flow_i16, sem_u8, gts, cfg: PipelineConfig):
     """Stacked images (F, H, W[, 2]) -> stacked FrameObservations.
 
-    ``lax.map`` rather than ``vmap``: batching the frontend's image
-    gathers/top-k makes XLA:TPU pick slower batched-gather lowerings
-    (measured 13.2 ms/frame vmapped vs 5.7 ms/frame for the single-frame
-    program); the frontend runs once per sequence chunk, so a sequential
-    device loop of efficient per-frame programs wins."""
+    ``lax.map`` rather than ``vmap``: a sequential device loop of
+    per-frame programs keeps the frontend's image gathers/top-k in their
+    single-frame lowering; the frontend runs once per sequence chunk."""
 
     W = cfg.camera.width
 
@@ -263,7 +261,7 @@ def run_sequence_batched(
     obs = frontend_batch(gray_u8, depth_u16, flow_i16, sem_u8, gt_stack, cfg)
     keys = jax.random.split(jax.random.PRNGKey(seed), Fn - 1)
     # chunk long sequences: each device call handles <= max_pairs_per_call
-    # pairs (HBM peaks scale with the pair axis); one compiled program per
+    # pairs (device-memory peaks scale with the pair axis); one compiled program per
     # distinct chunk length (at most two: full chunks + one remainder)
     n_pairs = Fn - 1
     chunks = []

@@ -63,7 +63,7 @@ def local_map_refine(
         & (uv_pred[..., 0] >= 0) & (uv_pred[..., 0] < width)
         & (uv_pred[..., 1] >= 0) & (uv_pred[..., 1] < height)
     )
-    res = matching.match_projected_auto(
+    res = matching.match_projected(
         desc_map, uv_pred, valid_map & in_view,
         desc_cur, uv_cur, valid_cur, radius=radius,
     )
@@ -141,7 +141,7 @@ def _fuse_scan(
             & (uv_pred[..., 0] >= 0) & (uv_pred[..., 0] < width)
             & (uv_pred[..., 1] >= 0) & (uv_pred[..., 1] < height)
         )
-        res = matching.match_projected_auto(
+        res = matching.match_projected(
             desc_l, uv_pred, in_view, desc_new, uv_new, valid_new,
             radius=radius,
         )

@@ -1,8 +1,8 @@
 """Fused per-frame refinement: TrackLocalMap + trailing-window BA chained
 onto ``tracker.full_step``'s packed output as ONE additional device program.
 
-Serving through a remote link, the live loop's cost is blocking
-device->host round trips, not device FLOPs.  The unfused loop pays up to
+In live serving, each blocking device->host fetch is a synchronisation
+point on the host's critical path.  The unfused loop pays up to
 four per steady-state frame (full_step result fetch, ctx pose fetch,
 TrackLocalMap fetch, window-BA fetch — reference counterparts
 src/Tracking.cc:3189 TrackLocalMap and src/LocalMapping.cc:48's

@@ -3,7 +3,7 @@
 The reference *requires* precomputed instance masks (its dense object
 sampling is keyed off maskSEM, src/Frame.cc:188).  Its dormant gco path
 (src/Tracking.cc:4445-4836) was meant to lift that requirement; this
-module completes that intent with the TPU MRF (ops/graphcut):
+module completes that intent with the batched MRF (ops/graphcut):
 
   1. sample a coarse grid with valid depth in both frames,
   2. flag dynamic candidates by 3-D scene-flow residual against the ego

@@ -2,7 +2,7 @@
 
 The reference continuously refines its keyframe window in a background
 thread (``LocalMapping::Run`` -> ``Optimizer::LocalBundleAdjustment``,
-src/LocalMapping.cc:48, src/Optimizer.cc:3341).  The TPU-native analog is
+src/LocalMapping.cc:48, src/Optimizer.cc:3341).  The batched analog is
 one fused device program per frame: detect keypoints on the window's
 first frame, chain them through the stored dense flow fields
 (frontend/tracks.chain_tracks), and run the inverse-depth windowed BA

@@ -1,6 +1,6 @@
 """Flow-aware pose/motion bundle adjustment, Schur-reduced, batched.
 
-This is the TPU-native replacement for the reference's g2o solves
+This is the batched replacement for the reference's g2o solves
 ``PoseOptimizationFlow2Cam`` (camera, src/Optimizer.cc:396-601) and
 ``PoseOptimizationFlow2`` (object, src/Optimizer.cc:2170-2377).  The factor
 graph there is one SE(3) vertex plus one *marginalized* 2-DoF flow vertex
@@ -15,8 +15,8 @@ g2o marginalizes the flow vertices inside its block solver — i.e. a Schur
 complement onto the single 6x6 pose block.  Here that structure is exploited
 *analytically*: because d(r_p)/df = I and d(r_f)/df = I, every per-point flow
 Hessian block is a scalar multiple of I2, so the Schur complement reduces to
-masked weighted reductions over the point axis — a perfect fit for the VPU,
-with zero sparse bookkeeping.  The whole Levenberg-Marquardt loop runs
+masked weighted reductions over the point axis — elementwise work plus
+reductions, with zero sparse bookkeeping.  The whole Levenberg-Marquardt loop runs
 device-side under ``lax.while_loop`` and is ``vmap``-able over objects.
 
 World points X_w = Twl @ pi^-1(obs, depth) are constants of the problem
@@ -42,7 +42,6 @@ class FlowBAParams(NamedTuple):
     tau: float = 1e-5            # lambda_0 = tau * max diag(H)
     # accepted-step relative-decrease convergence gate; 1e-6 reaches the
     # same objective as 1e-7 on kitti data with ~35% fewer iterations
-    # (the lockstep while_loop is the TPU latency floor)
     rel_tol: float = 1e-6
 
 
@@ -206,9 +205,8 @@ def solve_flow_ba(
         # Nielsen's update (as in g2o's Levenberg strategy)
         lam_acc = lam * jnp.maximum(1.0 / 3.0, 1.0 - (2.0 * gain - 1.0) ** 3)
         # converged: an accepted step changed the objective negligibly, or
-        # damping exploded (g2o terminates on the same signals); the loop
-        # is latency-bound on TPU so stopping early is a pure win — the
-        # fixpoint is identical
+        # damping exploded (g2o terminates on the same signals); the
+        # fixpoint is identical, so stopping early only saves iterations
         done = done | (accept & (F - F_new < p.rel_tol * F + 1e-10)) | (lam > 1e8)
         T = jnp.where(accept, T_new, T)
         f = jnp.where(accept, f_new, f)
@@ -235,155 +233,23 @@ def solve_flow_ba(
     )
 
 
-# one-per-process result of the scan-miscompile guard (None = not yet run)
-_SCAN_SELFCHECK: "bool | None" = None
-
-
-def _selfcheck_problem():
-    """Tiny deterministic solvable instance (N=128, 8 iters)."""
-    import numpy as np
-
-    rng = np.random.RandomState(7)
-    N = 128
-    fx = fy = 460.0
-    cx, cy = 320.0, 192.0
-    Xc = np.stack(
-        [rng.uniform(-4, 4, N), rng.uniform(-2, 2, N), rng.uniform(6, 20, N)], -1
-    )
-    T_true = np.asarray(se3.exp_se3(jnp.asarray([0.01, -0.02, 0.005, 0.1, -0.05, 0.2])))
-    obs = np.asarray(camera.project(jnp.asarray(Xc), fx, fy, cx, cy))
-    y1 = Xc @ np.asarray(T_true)[:3, :3].T + np.asarray(T_true)[:3, 3]
-    uv1 = np.asarray(camera.project(jnp.asarray(y1), fx, fy, cx, cy))
-    flow = (uv1 - obs).astype(np.float32)
-    depth = Xc[:, 2].astype(np.float32)
-    valid = np.ones(N, bool)
-    params = FlowBAParams(iters=8)
-    return (
-        jnp.eye(4, dtype=jnp.float32), jnp.eye(4, dtype=jnp.float32),
-        jnp.asarray(obs, jnp.float32), jnp.asarray(flow),
-        jnp.asarray(depth), jnp.asarray(valid),
-        fx, fy, cx, cy, params, jnp.asarray(T_true, jnp.float32),
-    )
-
-
-def pallas_scan_selfcheck(force: bool = False, _pallas_solver=None) -> bool:
-    """Guard against the batch<=1-under-``lax.scan`` Mosaic miscompile
-    (flow_ba_pallas.py header erratum): run ONE tiny unbatched solve
-    *inside* ``lax.scan`` through the Pallas path and through XLA, and
-    compare the resulting poses.  Cached per process; ``backend="auto"``
-    dispatch consults it on TPU, falling back to XLA (with a warning) on
-    mismatch.  The Pallas kernel itself carries a duplicate-instance fence
-    that makes the scan context compile correctly on the current
-    toolchain — this check observes that the fence actually holds on
-    whatever toolchain is running.
-
-    ``_pallas_solver`` is injectable for tests (simulate the miscompile)."""
-    global _SCAN_SELFCHECK
-    if _SCAN_SELFCHECK is not None and not force:
-        return _SCAN_SELFCHECK
-    import os
-
-    if os.environ.get("MMT_SKIP_PALLAS_SELFCHECK"):
-        _SCAN_SELFCHECK = True
-        return True
-    # the auto dispatch is usually first reached while TRACING an outer
-    # program (track_pair): jnp ops here would melt into that trace.  Run
-    # the whole check on a worker thread, whose trace stack is clean.
-    # (public jax.core.trace_state_clean was removed on this version;
-    # fall back through the private module, then to a conservative probe)
-    try:
-        from jax._src import core as _core
-
-        clean = _core.trace_state_clean()
-    except Exception:
-        clean = getattr(jax.core, "trace_state_clean", lambda: True)()
-    if not clean:
-        import threading
-
-        box = {}
-
-        def _worker():
-            box["ok"] = pallas_scan_selfcheck(
-                force=force, _pallas_solver=_pallas_solver
-            )
-
-        t = threading.Thread(target=_worker)
-        t.start()
-        t.join()
-        return box.get("ok", False)
-    import numpy as np
-
-    if _pallas_solver is None:
-        from multimot_track_tpu.solvers.flow_ba_pallas import solve_flow_ba_pallas
-
-        interpret = jax.default_backend() != "tpu"
-        _pallas_solver = functools.partial(solve_flow_ba_pallas, interpret=interpret)
-
-    (T0, Twl, obs, flow, depth, valid, fx, fy, cx, cy, params, T_true) = (
-        _selfcheck_problem()
-    )
-
-    def scanned(solver):
-        def step(carry, _):
-            res = solver(T0, Twl, obs, flow, depth, valid, fx, fy, cx, cy,
-                         params=params)
-            return carry, res.T
-
-        _, Ts = jax.lax.scan(step, jnp.int32(0), jnp.arange(1))
-        return np.asarray(Ts[0])
-
-    T_pl = scanned(_pallas_solver)
-    T_xla = scanned(
-        lambda *a, **k: solve_flow_ba(*a, **k)
-    )
-    # the miscompile's signature is the scanned kernel returning its INIT
-    # pose; require pallas-under-scan to agree with XLA-under-scan
-    ok = bool(np.isfinite(T_pl).all() and np.allclose(T_pl, T_xla, atol=5e-3))
-    if not ok:
-        import warnings
-
-        warnings.warn(
-            "flow-BA Pallas kernel miscompiles under lax.scan on this "
-            "toolchain (returned pose differs from XLA); disabling the "
-            "Pallas backend for auto dispatch in this process.",
-            RuntimeWarning,
-        )
-    _SCAN_SELFCHECK = ok
-    return ok
-
-
 def solve_flow_ba_auto(
     T_init, Twl, obs, flow_meas, depth, valid, fx, fy, cx, cy,
-    params: FlowBAParams = FlowBAParams(), backend: str = "auto",
-    point_weight=None,
+    params: FlowBAParams = FlowBAParams(), point_weight=None,
 ) -> FlowBAResult:
-    """Backend dispatch: the fused Pallas kernel on TPU, XLA elsewhere.
+    """The tracker's flow-BA entry.  Chosen where the program is lowered:
+    for CUDA the fused LM kernel (solvers/flow_ba_pallas.py, one thread
+    block per solve), for every other platform the XLA ``solve_flow_ba``.
+    Both implement identical numerics (tests/test_flow_ba_pallas.py)."""
+    from multimot_track_tpu.solvers.flow_ba_pallas import solve_flow_ba_pallas
 
-    ``backend``: "auto" (Pallas iff running on TPU, the padded point
-    count is lane-aligned, and the one-time scan-miscompile self-check
-    passed), "pallas", or "xla".  Both backends implement
-    identical numerics (tests/test_flow_ba_pallas.py); Pallas runs the
-    whole LM loop as one Mosaic program — measured 4.8x faster on the
-    batched object path, 1.2x on the sequential camera chain (PERF.md).
-    """
-    if backend == "auto":
-        use_pallas = (
-            jax.default_backend() == "tpu"
-            and obs.shape[0] % 128 == 0
-            and pallas_scan_selfcheck()
-        )
-    else:
-        use_pallas = backend == "pallas"
-    if use_pallas:
-        from multimot_track_tpu.solvers.flow_ba_pallas import solve_flow_ba_pallas
+    def branch(solve):
+        return lambda *a: solve(*a, fx, fy, cx, cy, params=params,
+                                point_weight=point_weight)
 
-        return solve_flow_ba_pallas(
-            T_init, Twl, obs, flow_meas, depth, valid, fx, fy, cx, cy,
-            params=params, point_weight=point_weight,
-        )
-    return solve_flow_ba(
-        T_init, Twl, obs, flow_meas, depth, valid, fx, fy, cx, cy,
-        params=params, point_weight=point_weight,
+    return jax.lax.platform_dependent(
+        T_init, Twl, obs, flow_meas, depth, valid,
+        cuda=branch(solve_flow_ba_pallas), default=branch(solve_flow_ba),
     )
 
 

@@ -10,7 +10,7 @@ Here the same problem is one dense-reduced device program:
   with closed-form 3x3 block inverses — a batched elementwise computation
   over the (L, O) observation table, no sparse bookkeeping;
 * the reduced camera system is (6K, 6K) dense.  At keyframe-store scale
-  (K <= 64 -> 384x384) one dense solve on the MXU beats any sparse path;
+  (K <= 64 -> 384x384) one dense solve beats any sparse path;
 * the whole damped-GN loop runs device-side under ``lax.while_loop`` with
   Levenberg accept/reject, exactly like solvers/flow_ba.py.
 

@@ -4,18 +4,16 @@ Used as the RANSAC minimal solver: the reference initializes object (and in
 the commented path, camera) motion with OpenCV AP3P PnP
 (src/Tracking.cc:4362-4367) and also ships its own Horn implementations
 (``Find3DAffineTransform`` src/Tracking.cc:5219-5309, ``RanSacHorn``
-:5123-5217).  On TPU, 3-point Horn over *both* frames' depth is the natural
+:5123-5217).  Batched, 3-point Horn over *both* frames' depth is the natural
 minimal solver, and hypotheses are scored with the same 2D reprojection
 gate the reference uses, so the inlier contract is unchanged.
 
 Implementation note: the classic Arun/Kabsch route (SVD of the 3x3
-cross-covariance) lowers on TPU to an iterative QR custom-call that costs
-~15 ms per 2000 triples and cannot batch past VMEM (measured,
-tools/diag_device_split.py) — it was ~60% of the whole tracker's device
-time.  Horn's *quaternion* form needs only the dominant eigenvector of a
+cross-covariance) lowers to an iterative decomposition custom call per
+batch.  Horn's *quaternion* form needs only the dominant eigenvector of a
 symmetric 4x4, which repeated matrix squaring delivers in 16 fused batched
-ops (12 squarings + 4 power steps = an effective 2^12*4 power iterations):
-~10 ms for 96,000 triples, a ~70x speedup, and det(R)=+1 by construction.
+ops (12 squarings + 4 power steps = an effective 2^12*4 power iterations),
+and det(R)=+1 by construction.
 """
 
 from __future__ import annotations

@@ -5,7 +5,7 @@ RANSAC over a fundamental-matrix model and a homography model, the
 reference's SH/(SH+SF) > 0.40 selection rule, then pose recovery and
 triangulation with cheirality/parallax checks.
 
-TPU shape: all hypotheses for both models are solved and scored as one
+Batched shape: all hypotheses for both models are solved and scored as one
 batch (8-point F via vmapped SVD, 4-point H via DLT); triangulation of all
 points under all 4 (R, t) candidates is a single batched linear solve.
 

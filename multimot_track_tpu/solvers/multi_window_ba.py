@@ -16,7 +16,7 @@ solves):
 Depths enter as fixed measurements (the reference's choice in its active
 solvers); full structure elimination lives in solvers/window_ba.  At
 window scale (~600 tangent dims) the normal system is built with jacfwd
-and solved densely — squarely in MXU territory; no sparse machinery.
+and solved densely — a dense matmul-sized system; no sparse machinery.
 """
 
 from __future__ import annotations

@@ -2,7 +2,7 @@
 
 Counterpart of the reference's EPnP relocalisation solver
 (src/PnPsolver.cc, Lepetit's epnp + RANSAC): used where current-frame depth
-is unavailable (monocular, relocalisation).  The TPU design swaps the
+is unavailable (monocular, relocalisation).  The batched design swaps the
 control-point formulation for a 6-point DLT nullspace (one small SVD per
 hypothesis, vmapped) followed by projection-space Gauss-Newton — all
 fixed-shape and batch-friendly.

@@ -5,12 +5,12 @@ Counterpart of ``Optimizer::OptimizeEssentialGraph``
 SE(3) constraints between keyframes, solved after a loop detection to
 spread the loop-closure correction over the trajectory.
 
-TPU shape: all edge residuals r_e = Log(Z_ij^-1 Ti Tj^-1) evaluate as one
+Batched shape: all edge residuals r_e = Log(Z_ij^-1 Ti Tj^-1) evaluate as one
 batch.  Two solvers share that residual:
 
 * :func:`optimize_pose_graph` — exact dense Gauss-Newton via ``jacfwd``;
   right at keyframe-graph scale (hundreds of poses: a few-thousand-dim
-  MXU solve), quadratic in memory beyond that;
+  dense solve), quadratic in memory beyond that;
 * :func:`optimize_pose_graph_cg` — analytic per-edge Jacobians
   (J_i = Jl^-1(r) Ad(Z^-1), J_j = -Jl^-1(r) Ad(Z^-1 A)) and a
   MATRIX-FREE conjugate-gradient solve of the normal equations: Hx is a

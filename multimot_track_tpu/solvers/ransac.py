@@ -1,10 +1,10 @@
 """Batched fixed-iteration RANSAC pose initialization.
 
-TPU re-design of the reference's ``GetInitModelObj``/``GetInitModelCam``
+Batched re-design of the reference's ``GetInitModelObj``/``GetInitModelCam``
 (cv::solvePnPRansac AP3P, 500 iterations, 0.3 px reprojection gate,
 src/Tracking.cc:4227-4443): no data-dependent early exit — all hypotheses
 are generated and scored in one batched program, the winner picked by
-argmax (SURVEY.md §7 "RANSAC on TPU").
+argmax (SURVEY.md §7).
 
 Hypotheses come from 3-point Horn alignment between the last frame's world
 points and the current frame's back-projected points (both depths are
@@ -128,7 +128,7 @@ def ransac_rigid_pose(
         return n
 
     # score hypotheses in chunks: a flat vmap materialises (iters, N, 3)
-    # intermediates, which blows HBM once this solver itself sits under a
+    # intermediates, which blows device memory once this solver itself sits under a
     # pairs x objects vmap; lax.map bounds the live set to one chunk
     chunk = 250
     n_chunks = max(iters // chunk, 1)

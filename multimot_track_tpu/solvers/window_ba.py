@@ -1,6 +1,6 @@
 """Sliding-window bundle adjustment with inverse-depth Schur elimination.
 
-The TPU-native counterpart of the reference's keyframe-window machinery
+The batched counterpart of the reference's keyframe-window machinery
 (``Optimizer::LocalBundleAdjustment`` src/Optimizer.cc:3341 — sparse Schur
 over MapPoint blocks in g2o).  Structure exploited here:
 

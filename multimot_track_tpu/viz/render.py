@@ -2,7 +2,7 @@
 
 The reference renders live OpenCV/Pangolin windows and dumps ``feat.png``,
 ``speed.png``, ``traj.png`` (src/Tracking.cc:684-878, src/FrameDrawer.cc,
-src/MapDrawer.cc).  A TPU batch pipeline has no display; the equivalents
+src/MapDrawer.cc).  A batch pipeline has no display; the equivalents
 here render the same artifacts to files with PIL — feature/flow overlays,
 object bounding boxes with speed labels, the 2-D top-down trajectory
 canvas, and the birds-eye scene-flow view (DrawSparseFlowBirdeye).

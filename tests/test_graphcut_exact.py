@@ -1,5 +1,5 @@
 """Exact native graph-cut (alpha-expansion over Dinic max-flow) and its
-role as the exactness oracle for the TPU mean-field/ICM relaxation.
+role as the exactness oracle for the batched mean-field/ICM relaxation.
 
 The reference's gco library (src/gco/maxflow.cpp) computes exact
 expansion moves; SURVEY.md §7 traded that exactness for a batched

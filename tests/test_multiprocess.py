@@ -1,5 +1,5 @@
 """REAL multi-process distribution: two OS processes, a TCP coordinator,
-and cross-process collectives (the DCN code path itself, not the
+and cross-process collectives (the multi-host code path itself, not the
 single-process virtual mesh the other multihost tests use).
 
 Each worker (tools/multiprocess_worker.py) brings up jax.distributed

@@ -4,9 +4,8 @@ The reference solves EVERY detected object sequentially each frame, with
 association tables sized for ~12 concurrent movers
 (/root/reference/src/Tracking.cc:1658-2253, 704-748).  Our vmapped
 ensemble solves a top-``k_obj_solve`` batch; movers beyond it are demoted
-to inactive for that frame (tracker.py ``active &= solved``).  KCURVE.json
-prices the batch (28.7 ms/pair at 4 -> 52.2 at 8); this tool measures
-what the cap COSTS in accuracy and ID stability on a scene with 7+
+to inactive for that frame (tracker.py ``active &= solved``).  This tool
+measures what the cap COSTS in accuracy and ID stability on a scene with 7+
 concurrent distinct-label movers (io/synth.make_junction_frames), so the
 default is picked from data rather than assumption.
 
@@ -155,15 +154,6 @@ def main():
         rows.append(r)
 
     root = pathlib.Path(__file__).resolve().parent.parent
-    # device cost per batch size from the chip-measured KCURVE
-    try:
-        kcurve = json.loads((root / "KCURVE.json").read_text())
-        cost = {r["k_obj_solve"]: r["device_ms_per_pair"] for r in kcurve
-                if r["k_obj_max"] == 8}
-        for r in rows:
-            r["device_ms_per_pair"] = cost.get(r["k_obj_solve"])
-    except Exception:
-        pass
     (root / "KOBJ_AB.json").write_text(json.dumps(rows, indent=1))
     print("wrote KOBJ_AB.json")
 

@@ -2,7 +2,7 @@
 
 Each OS process runs this script with (process_id, num_processes, port,
 out_dir).  It brings up the distributed runtime over a TCP coordinator —
-the actual DCN code path, not the single-process virtual mesh — builds
+the actual multi-host code path, not the single-process virtual mesh — builds
 the hybrid ("host", "pair") mesh, assembles a global batch from
 process-local shards, and runs the psum-assembled distributed flow-BA
 (parallel/dist_ba) with its point axis spanning BOTH processes, so the
